@@ -1,10 +1,11 @@
-"""infercnvpy_tpu — TPU-native copy-number-variation inference from scRNA-seq.
+"""infercnvpy_tpu — copy-number-variation inference from scRNA-seq in JAX.
 
-A standalone, TPU-first re-design of the capabilities of infercnvpy
-(reference: icbi-lab/infercnvpy).  The compute path is JAX/XLA/Pallas;
-everything runs without scanpy/anndata installed: the package ships its own
-lightweight AnnData-compatible container (:mod:`infercnvpy_tpu.core`) plus
-TPU implementations of PCA, kNN graphs, Leiden clustering, UMAP and t-SNE.
+A standalone re-design of the capabilities of infercnvpy (reference:
+icbi-lab/infercnvpy) whose compute path is JAX/XLA, run on an NVIDIA GPU
+(or the CPU).  Everything runs without scanpy/anndata installed: the package
+ships its own lightweight AnnData-compatible container
+(:mod:`infercnvpy_tpu.core`) plus device implementations of PCA, kNN graphs,
+UMAP and t-SNE and a native Leiden clustering.
 
 Namespace layout mirrors the reference (reference: src/infercnvpy/__init__.py:5-7):
 ``io`` / ``pp`` / ``tl`` / ``pl`` / ``datasets``.

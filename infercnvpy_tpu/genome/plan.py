@@ -1,8 +1,8 @@
-"""Host-side window planning for the TPU smoothing kernel.
+"""Host-side window planning for the device smoothing kernel.
 
 The reference computes the running mean chromosome-by-chromosome with ragged
-Python control flow (reference: tl/_infercnv.py:301-356).  The TPU-native
-design instead precomputes, once per (var, window_size, step) combination, a
+Python control flow (reference: tl/_infercnv.py:301-356).  This design
+instead precomputes, once per (var, window_size, step) combination, a
 static *packed layout*:
 
 * all genes of "regular" chromosomes (more genes than the window) are laid out
@@ -28,7 +28,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import pandas as pd
 
-__all__ = ["natural_sort", "WindowPlan", "build_window_plan"]
+__all__ = ["natural_sort", "WindowPlan", "build_window_plan", "GeneProjectionData", "gene_projection_data"]
 
 
 def natural_sort(items: Sequence[str]) -> list[str]:
@@ -98,8 +98,7 @@ class WindowPlan:
 
         Two plans built from identical (var, window_size, step) inputs hash
         equal, so repeated ``tl.infercnv`` calls over the same genome reuse
-        one traced/compiled executable instead of recompiling (XLA compiles
-        cost tens of seconds on a remote TPU).
+        one traced/compiled executable instead of recompiling.
         """
         key = getattr(self, "_cache_key", None)
         if key is None:
@@ -269,3 +268,29 @@ def build_window_plan(
     plan.gene_win_hi = np.concatenate(hi).astype(np.int32) if hi else np.zeros(0, np.int32)
 
     return plan
+
+
+@dataclass(frozen=True)
+class GeneProjectionData:
+    """Which used genes get a per-gene value (``calculate_gene_values``)."""
+
+    covered_sorted: np.ndarray  #: (n_covered,) used-gene index of each gene-value column (ascending)
+    total: int  #: number of covered genes
+
+
+#: id(plan) -> (plan, gpd).  The plan object itself is stored in the value so
+#: it stays alive for the lifetime of the cache entry — otherwise a
+#: garbage-collected plan could hand its id to a NEW plan, which would then
+#: silently receive the old plan's projection data.
+_gpd_cache: dict = {}
+
+
+def gene_projection_data(plan: WindowPlan) -> GeneProjectionData:
+    """Covered-gene columns of a plan (genes inside at least one window), memoized per plan."""
+    hit = _gpd_cache.get(id(plan))
+    if hit is not None and hit[0] is plan:
+        return hit[1]
+    covered = np.flatnonzero(plan.gene_win_lo >= 0).astype(np.int64)
+    gpd = GeneProjectionData(covered_sorted=covered, total=int(len(covered)))
+    _gpd_cache[id(plan)] = (plan, gpd)
+    return gpd

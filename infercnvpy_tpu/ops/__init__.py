@@ -1,1 +1,1 @@
-"""TPU compute ops (JAX/XLA/Pallas): smoothing kernel, linear algebra, graphs."""
+"""Device compute ops (JAX/XLA): smoothing pipeline, linear algebra, graphs."""

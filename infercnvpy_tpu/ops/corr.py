@@ -1,16 +1,16 @@
-"""Pairwise Pearson correlation on device (standardize + MXU matmuls).
+"""Pairwise Pearson correlation on device (standardize + matmuls).
 
 Used by tl.ithcna / tl.ithgex (reference computes float64 np.corrcoef
 host-side, tl/_scores.py:137,207); here rows are standardized and the
-correlations become (cells × cells) matmuls, which XLA tiles onto the MXU.
+correlations become (cells × cells) matmuls.
 
 Precision: with jax x64 enabled the whole computation runs in float64 and
-matches ``np.corrcoef`` to ~1e-13.  Without x64 (TPU default), rows are
+matches ``np.corrcoef`` to ~1e-13.  Without x64 (JAX's default), rows are
 standardized in float64 on the host and split into double-float32 (hi, lo)
 parts; the Gram matrix is then ``hi·hiᵀ + hi·loᵀ + lo·hiᵀ`` with HIGHEST
 matmul precision — a compensated-f32 scheme whose residual error is the f32
 accumulation of the dominant term (~1e-6 absolute on unit-norm rows) instead
-of the ~1e-3 of a plain bf16-MXU matmul.
+of the ~1e-3 of a plain TF32 tensor-core matmul.
 """
 
 from __future__ import annotations
@@ -117,7 +117,7 @@ def pearson_rows(X, mesh=None):
         lf = jax.device_put(lo, repl_sh)
         return np.asarray(fn(hs, ls, hf, lf))[:n]
 
-    # double-f32 split for the single-device no-x64 (TPU) Gram
+    # double-f32 split for the single-device no-x64 Gram
     hi = Xn.astype(np.float32)
     lo = (Xn - hi).astype(np.float32)
     return _pearson_rows_split(jnp.asarray(hi), jnp.asarray(lo))

@@ -1,8 +1,8 @@
-"""Exact k-nearest-neighbors via tiled MXU matmuls + running top-k merge.
+"""Exact k-nearest-neighbors via tiled matmuls + running top-k merge.
 
 Replaces the reference's pynndescent/numba approximate kNN (reference:
-pp/__init__.py:43 via scanpy).  On TPU, brute-force exact kNN is a natural
-fit: squared distances are one matmul per (query block × database block) tile,
+pp/__init__.py:43 via scanpy).  On an accelerator, brute-force exact kNN is a
+natural fit: squared distances are one matmul per (query block × database block) tile,
 and a running top-k merge keeps memory at O(block² ) regardless of cell count.
 """
 
@@ -29,7 +29,8 @@ def _query_block_knn_impl(q, qn, qidx, db, dbn, dbidx, k):
     def scan_body(carry, xs):
         best_d, best_i = carry
         blk, blkn, blki = xs
-        d2 = qn[:, None] + blkn[None, :] - 2.0 * q @ blk.T
+        # full f32 precision: TF32 distances would reorder near neighbours
+        d2 = qn[:, None] + blkn[None, :] - 2.0 * jnp.matmul(q, blk.T, precision=jax.lax.Precision.HIGHEST)
         # exact-zero self distance so the query point always ranks first
         d2 = jnp.where(blki[None, :] == qidx[:, None], -1.0, d2)
         cat_d = jnp.concatenate([best_d, d2], axis=1)

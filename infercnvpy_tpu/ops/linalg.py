@@ -1,8 +1,8 @@
-"""Batched TPU linear algebra: truncated SVD / PCA of the cell×window matrix.
+"""Batched device linear algebra: truncated SVD / PCA of the cell×window matrix.
 
 Replaces the reference's ARPACK path (reference: tl/__init__.py:66-71 calls
-``sc.tl.pca(svd_solver="arpack", zero_center=False)``).  TPU-native design:
-accumulate the (windows × windows) Gram matrix with blocked MXU matmuls over
+``sc.tl.pca(svd_solver="arpack", zero_center=False)``).  Design: accumulate
+the (windows × windows) Gram matrix with blocked full-precision matmuls over
 streamed row blocks (works for sparse inputs of any cell count), then a single
 dense ``eigh`` on the small Gram matrix gives the top components.
 
@@ -11,8 +11,8 @@ representation of the Gram — however the products are computed — bounds tail
 eigenvalues at ~2⁻²⁴ · (σ₁/σᵢ)² relative error (a double-f32 product scheme
 was measured to change nothing: the storage ulp dominates).  So
 ``high_precision`` (default: on when jax x64 is enabled) switches to float64
-end-to-end: on x64 backends the blocked matmuls run in f64 on device; without
-x64 (TPU) the Gram/projection run in f64 on the host via BLAS — an opt-in
+end-to-end: with x64 enabled the blocked matmuls run in f64 on device;
+without x64 the Gram/projection run in f64 on the host via BLAS — an opt-in
 accuracy/throughput trade (~n·d² host FLOPs) for ill-conditioned inputs.
 """
 
@@ -27,10 +27,15 @@ from ..parallel.mesh import pad_rows as _pad_rows
 
 __all__ = ["truncated_svd"]
 
+#: every float32 product here runs at full precision: a default-precision
+#: matmul may use TF32 on GPU tensor cores (~1e-3 relative), and the Gram
+#: squares the condition number
+_HI = jax.lax.Precision.HIGHEST
+
 
 @jax.jit
 def _gram_accum(G, block):
-    return G + block.T @ block
+    return G + jnp.matmul(block.T, block, precision=_HI)
 
 
 @jax.jit
@@ -39,7 +44,7 @@ def _col_sums(s, block):
 
 
 def _project(block, V):
-    return np.asarray(jnp.asarray(block) @ V)
+    return np.asarray(jnp.matmul(jnp.asarray(block), V, precision=_HI))
 
 
 # --- mesh-sharded building blocks (BASELINE configs 4-5: distributed PCA
@@ -59,7 +64,7 @@ def _sharded_gram_fn(mesh):
         from ..parallel.mesh import CELL_AXIS
 
         def f(x):
-            return jax.lax.psum(x.T @ x, CELL_AXIS)
+            return jax.lax.psum(jnp.matmul(x.T, x, precision=_HI), CELL_AXIS)
 
         _SHARDED_CACHE[key] = jax.jit(
             jax.shard_map(f, mesh=mesh, in_specs=P(CELL_AXIS), out_specs=P())
@@ -79,7 +84,10 @@ def _sharded_project_fn(mesh):
 
         _SHARDED_CACHE[key] = jax.jit(
             jax.shard_map(
-                lambda x, v: x @ v, mesh=mesh, in_specs=(P(CELL_AXIS), P()), out_specs=P(CELL_AXIS)
+                lambda x, v: jnp.matmul(x, v, precision=_HI),
+                mesh=mesh,
+                in_specs=(P(CELL_AXIS), P()),
+                out_specs=P(CELL_AXIS),
             )
         )
     return _SHARDED_CACHE[key]
@@ -111,7 +119,7 @@ def truncated_svd(
     mesh
         A 1-D ``jax.sharding.Mesh`` over the cell axis: each row block is
         sharded across the mesh, every device accumulates the Gram of ITS
-        rows, and one ``psum`` over ICI combines them — the distributed
+        rows, and one ``psum`` combines them — the distributed
         replacement for the reference's single-process ARPACK call
         (reference: tl/__init__.py:66-71; BASELINE configs 4-5).  Zero-row
         padding never changes the Gram, so results are device-count
@@ -137,10 +145,8 @@ def truncated_svd(
 
             b = jax.device_put(_pad_rows(blk.astype(acc_dtype, copy=False), n_dev), shard_cells(mesh))
             return np.asarray(_sharded_gram_fn(mesh)(b), dtype=np.float64)
-        return np.asarray(
-            jnp.asarray(blk.astype(acc_dtype, copy=False)).T @ jnp.asarray(blk.astype(acc_dtype, copy=False)),
-            dtype=np.float64,
-        )
+        b = jnp.asarray(blk.astype(acc_dtype, copy=False))
+        return np.asarray(jnp.matmul(b.T, b, precision=_HI), dtype=np.float64)
 
     s64 = np.zeros(d, dtype=np.float64)
     if use_hp and x64:
@@ -151,7 +157,7 @@ def truncated_svd(
             if zero_center:
                 s64 += np.asarray(blk, dtype=np.float64).sum(axis=0)
     elif use_hp:
-        # backend has no f64 (TPU): exact f64 accumulation on the host
+        # x64 disabled: exact f64 accumulation on the host
         G64 = np.zeros((d, d), dtype=np.float64)
         for _, blk in _blocks():
             b64 = np.asarray(blk, dtype=np.float64)

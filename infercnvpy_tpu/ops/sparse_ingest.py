@@ -1,9 +1,9 @@
-"""Device-side CSR densification: ship sparse arrays, pack on the TPU.
+"""Device-side CSR densification: ship sparse arrays, pack on the device.
 
 The reference densifies sparse expression on the host, one worker chunk at a
-time (reference: tl/_infercnv.py:115-137,419).  Round-3's TPU pipeline kept
-that shape — host-side densify into the packed layout, then a dense
-host→device transfer of ``cells × packed_width × 4`` bytes per batch.  At
+time (reference: tl/_infercnv.py:115-137,419).  The host packer keeps that
+shape — host-side densify into the packed layout, then a dense host→device
+transfer of ``cells × packed_width × 4`` bytes per batch.  At
 typical single-cell densities (2–10 %) that ships 10–20× more bytes than the
 CSR arrays contain, and the host scatter is CPU-bound.
 

@@ -1,7 +1,7 @@
 """t-SNE in JAX (standalone replacement for sklearn's t-SNE used by scanpy).
 
 The reference delegates to ``sc.tl.tsne`` (reference: tl/__init__.py:139).
-TPU formulation: sparse high-dimensional affinities from the exact kNN graph
+Device formulation: sparse high-dimensional affinities from the exact kNN graph
 (3·perplexity neighbors, like Barnes-Hut t-SNE), vectorized per-point beta
 binary search, then full gradient descent where the O(N²) repulsive term is
 computed from the 2-D embedding only — one small matmul-shaped pass per
@@ -66,6 +66,8 @@ def _optimize(Y0, P_rows, P_cols, P_vals, n_iter, exag_iter, early_exaggeration,
         # repulsive: blocked over row tiles — never materializes (n, n, ·).
         # Per tile:  q_ij = 1/(1+|y_i-y_j|²) via the matmul expansion of d²;
         # force_i = (Σ_j q²)·y_i − q²·Y  (one skinny matmul), Z accumulated.
+        # Default matmul precision on purpose (TF32 on GPU tensor cores): a
+        # layout's gradient tolerates ~1e-3 relative error, unlike PCA/kNN.
         sq = jnp.sum(Y * Y, axis=1)
 
         def rep_block(args):

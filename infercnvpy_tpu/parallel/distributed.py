@@ -1,8 +1,7 @@
 """Multi-host execution: jax.distributed runtime + per-host shard streaming.
 
 The reference's only parallelism is a single-machine process pool
-(reference: tl/_infercnv.py:120-135).  The TPU-native equivalent for pod
-slices:
+(reference: tl/_infercnv.py:120-135).  The equivalent across hosts:
 
 * ``initialize()`` wraps :func:`jax.distributed.initialize` (no-op when
   single-process);
@@ -13,9 +12,8 @@ slices:
 * the genome plan, reference baseline and pyramid weights are replicated;
 * ``infercnv_global_array`` builds one global jax.Array from the per-host
   shards via :func:`jax.make_array_from_process_local_data` and runs the
-  fused pipeline under a global 1-D cell mesh — the chunk-scoped noise std
-  and any cluster statistics become cross-host collectives over ICI/DCN
-  inserted by XLA.
+  pipeline under a global 1-D cell mesh — the chunk-scoped noise std and
+  any cluster statistics become cross-host collectives inserted by XLA.
 
 Chunk semantics stay GLOBAL: ``chunk_ids`` are derived from global cell
 indices, so an N-host run reproduces the single-host result exactly (tested

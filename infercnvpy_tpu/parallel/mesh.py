@@ -1,10 +1,11 @@
 """Device-mesh helpers for data-parallel (cell-sharded) execution.
 
 The reference's only parallelism is a fork-based process pool over cell
-chunks (reference: tl/_infercnv.py:120-135).  The TPU-native equivalent is a
-1-D ``jax.sharding.Mesh`` over the cell axis: expression rows are sharded,
+chunks (reference: tl/_infercnv.py:120-135).  Here the equivalent is a 1-D
+``jax.sharding.Mesh`` over the cell axis: expression rows are sharded,
 the genome plan / reference baseline are replicated, and cluster statistics
-reduce with XLA collectives.
+reduce with XLA collectives.  The mesh follows the algorithm alone: the cards
+of one host reach each other all to all, so no axis mirrors a topology.
 """
 
 from __future__ import annotations

@@ -3,11 +3,8 @@
 The transform from :mod:`infercnvpy_tpu.ops.infercnv_kernel` is pure
 data-parallel over cells except for the chunk-scoped noise std; under
 ``shard_map`` each shard computes partial per-chunk sums over the GLOBAL
-chunk ids and the partials are combined with ``psum`` — the TPU analogue of
-the reference's vstack-gather (reference: tl/_infercnv.py:137).  shard_map
-(rather than jit-with-shardings) guarantees the Pallas kernel runs once per
-device on its local shard instead of relying on the SPMD partitioner to
-handle the custom call.
+chunk ids and the partials are combined with ``psum`` — the counterpart of
+the reference's vstack-gather (reference: tl/_infercnv.py:137).
 """
 
 from __future__ import annotations

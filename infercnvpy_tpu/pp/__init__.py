@@ -1,7 +1,7 @@
 """Preprocessing: neighborhood graph on the CNV representation.
 
 API mirrors reference pp/__init__.py:8-43; the graph itself is computed by
-the in-repo exact-kNN (MXU matmuls) + fuzzy-connectivity ops instead of
+the in-repo exact-kNN (tiled matmuls) + fuzzy-connectivity ops instead of
 scanpy/pynndescent.
 """
 

@@ -1,8 +1,9 @@
 """Trace capture and annotation on top of ``jax.profiler``.
 
 The reference has no profiling subsystem at all (its only instrumentation is
-tqdm progress bars, reference: tl/_infercnv.py:128); on TPU, XLA-level traces
-are the primary performance tool, so this framework exposes them first-class:
+tqdm progress bars, reference: tl/_infercnv.py:128); on an accelerator,
+XLA-level traces are the primary performance tool, so this framework exposes
+them first-class:
 
 * :func:`trace` — context manager capturing a TensorBoard/XProf trace
   (``xplane.pb``) of everything executed inside it;
@@ -12,9 +13,8 @@ are the primary performance tool, so this framework exposes them first-class:
   ``tl.infercnv``) captures a trace of every driver call into a fresh
   subdirectory, with zero code changes for the user.
 
-Wall-clock stage attribution (the numbers in docs/roofline.md) lives in
-``tools/profile_parts.py`` / ``tools/profile_gene_parts.py``; this module is
-the *trace* side: per-op device timelines, fusion boundaries, DMA overlap.
+This module is the *trace* side: per-op device timelines, fusion boundaries,
+transfer overlap.
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ def trace(logdir: str | os.PathLike):
     """Capture a device+host profiler trace of the enclosed block.
 
     The result is a TensorBoard ``plugins/profile/<run>`` directory readable
-    by XProf / TensorBoard's profile plugin.  Works on TPU and CPU backends.
+    by XProf / TensorBoard's profile plugin.  Works on GPU and CPU backends.
 
     >>> with profiling.trace("/tmp/cnv_trace"):
     ...     tl.infercnv(adata)

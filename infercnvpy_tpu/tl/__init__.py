@@ -61,7 +61,7 @@ def pca(
 ) -> np.ndarray | None:
     """PCA on the result of :func:`infercnv` (reference: tl/__init__.py:33-75).
 
-    ``svd_solver`` is accepted for API compatibility; the TPU implementation
+    ``svd_solver`` is accepted for API compatibility; the implementation
     always uses the blocked-Gram eigendecomposition
     (:func:`infercnvpy_tpu.ops.linalg.truncated_svd`).
     """

@@ -1,7 +1,7 @@
 """`tl.infercnv` — the primary CNV-inference entry point.
 
 API and numerics contract follow the reference driver
-(reference: tl/_infercnv.py:18-161), but the execution model is TPU-native:
+(reference: tl/_infercnv.py:18-161), but the execution model is the device's:
 
 * no process fan-out — ONE jitted XLA program processes a whole device batch
   of cells (reference forks ``cpu_count()`` workers, :120-135);
@@ -21,7 +21,7 @@ import pandas as pd
 import scipy.sparse as sp
 
 from .._util import _ensure_array, warn
-from ..genome.plan import build_window_plan
+from ..genome.plan import _gpd_cache, build_window_plan, gene_projection_data
 from ..ops.infercnv_kernel import _pack_lut, build_infercnv_fn, pack_columns, pack_csr, packed_width
 
 __all__ = ["infercnv"]
@@ -57,11 +57,11 @@ def infercnv(
 
     Parameters mirror the reference (reference: tl/_infercnv.py:18-96).
     ``n_jobs`` is accepted for API compatibility but ignored (no process pool —
-    the TPU pipeline is a single compiled program).  Additional parameters:
+    the device pipeline is a single compiled program).  Additional parameters:
 
     batch_cells
         Number of cells per device batch.  ``None`` picks a multiple of
-        ``chunksize`` targeting a few GB of HBM.  Does not affect numerics.
+        ``chunksize`` targeting ~1.5 GB of dense input.  Does not affect numerics.
     dtype
         Compute dtype.  ``None`` uses float64 when the (densified) input is
         float64/int (matching numpy promotion in the reference), else float32.
@@ -92,16 +92,15 @@ def infercnv(
     transfer_dtype
         Opt-in reduced-precision host→device transfer (``"bfloat16"`` or
         ``"float16"``): expression values ship at half the bytes and are
-        upcast to the compute dtype on device.  On tunneled/remote TPU
-        backends the transfer IS the e2e bottleneck (see docs/roofline.md),
-        so halving bytes buys wall time directly.  ``None`` (default) ships
+        upcast to the compute dtype on device.  Where the host→device
+        transfer is the bottleneck, halving bytes buys wall time directly
+        (not measured on a GPU yet).  ``None`` (default) ships
         full precision — bit-exact parity with the reference.  Only the
         input expression is reduced; all compute stays in the compute dtype.
     compress_results
         Fetch each batch's result as a nonzero bitmask + compacted values
         instead of the dense matrix (bit-identical CSR; 3-8× fewer
-        device→host bytes at typical noise-gate survival — the D2H link is
-        the constraint on remote backends, see docs/roofline.md).  On a
+        device→host bytes at typical noise-gate survival).  On a
         mesh the compaction runs per shard under ``shard_map``.  ``None``
         (default) enables it automatically whenever the noise gate is on;
         ``False`` forces the dense fetch.
@@ -227,7 +226,7 @@ def clear_transform_caches() -> None:
     """Drop every memoized transform and compiled executable.
 
     Frees the builder caches (jit objects and their traced programs), the
-    AOT executable cache, and the sharded-downstream transform caches
+    AOT executable cache, the gene-projection cache, and the sharded-downstream transform caches
     (corr/knn/linalg/scores).  The next call of each path recompiles; use
     from long-lived services between unrelated workloads.
     """
@@ -243,6 +242,7 @@ def clear_transform_caches() -> None:
     from . import _scores
 
     _EXEC_CACHE.clear()
+    _gpd_cache.clear()
     _ik._BUILD_CACHE.clear()
     _si._BUILD_CACHE.clear()
     _sh._BUILD_CACHE.clear()
@@ -417,7 +417,7 @@ def _infercnv_compute(
     batch_cells = min(batch_cells, ((n_cells + chunksize - 1) // chunksize) * chunksize)
 
     # every local device participates by default: shard each device batch
-    # over a 1-D cell mesh (the TPU analogue of the reference's process pool,
+    # over a 1-D cell mesh (the counterpart of the reference's process pool,
     # reference: tl/_infercnv.py:120-135)
     use_mesh = mesh is not False and (mesh is not None or len(jax.devices()) > 1)
     n_dev = 1
@@ -428,8 +428,8 @@ def _infercnv_compute(
     if device_densify and use_mesh:
         warn("device_densify is not supported with a multi-device mesh; using the host packer")
     # compressed result fetch: bitmask + compacted survivors instead of the
-    # dense matrix (the noise gate zeroes most entries; D2H is the slow
-    # direction on remote links — see ops/result_pack.py).  On a mesh the
+    # dense matrix (the noise gate zeroes most entries — see
+    # ops/result_pack.py).  On a mesh the
     # compaction runs per shard under shard_map (no cross-device cumsum).
     use_result_pack = compress_results is True or (
         compress_results is None and dynamic_threshold is not None
@@ -514,8 +514,6 @@ def _infercnv_compute(
     gene_parts = [] if calculate_gene_values else None
     n_gene_cols = None
     if calculate_gene_values:
-        from ..ops.pallas_gene import gene_projection_data
-
         n_gene_cols = int(gene_projection_data(plan).total)
 
     timing = stats is not None
@@ -734,10 +732,10 @@ def _infercnv_compute(
     # software pipeline: while the device computes batch k, a single worker
     # thread packs batch k+1 and enqueues its transfer, and the main thread
     # drains batch k-1 (async device->host copy) — packing, transfers, and
-    # compute all overlap (the TPU analogue of the reference's worker pool
+    # compute all overlap (the counterpart of the reference's worker pool
     # keeping all cores busy, reference: tl/_infercnv.py:120-137).  The
     # worker thread matters on backends where `device_put` blocks the calling
-    # thread until bytes are on the device (remote/tunneled TPU).  With stats
+    # thread until bytes are on the device.  With stats
     # enabled the pipeline is serialized instead, so the per-stage breakdown
     # is exact and the total is an upper bound on the pipelined wall time.
     starts = list(range(0, n_cells, batch_cells))
@@ -855,8 +853,6 @@ def _infercnv_compute(
         # device gene columns are in coverage-group-sorted order; scatter them
         # back to the masked var axis (uncovered genes stay NaN, matching the
         # reference's reindex, reference: tl/_infercnv.py:141-149)
-        from ..ops.pallas_gene import gene_projection_data
-
         covered_sorted = gene_projection_data(plan).covered_sorted
         per_gene = np.full((n_cells, var.shape[0]), np.nan, dtype=used.dtype)
         per_gene[:, plan.used_genes[covered_sorted]] = used

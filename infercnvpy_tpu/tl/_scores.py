@@ -7,7 +7,7 @@ Behavioral contract follows reference tl/_scores.py:
 * ``ithcna``     — same on the CNV matrix (:154-221)
 
 Pearson correlation matrices are computed on device (standardize rows + one
-MXU matmul) for groups large enough to benefit; tiny groups run in numpy.
+matmul) for groups large enough to benefit; tiny groups run in numpy.
 """
 
 from __future__ import annotations

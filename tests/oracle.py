@@ -4,7 +4,7 @@ A direct, unoptimized transliteration of the reference semantics
 (reference: tl/_infercnv.py:411-457 chunk pipeline, :179-244 running mean,
 :247-291 gene averages, :301-356 per-chromosome loop, :120-161 chunk
 fan-out/assembly) used as the ground truth for randomized differential
-testing of the JAX/Pallas path.  Keep this file boring: clarity over speed,
+testing of the JAX path.  Keep this file boring: clarity over speed,
 numpy only.
 """
 

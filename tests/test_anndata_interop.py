@@ -16,10 +16,10 @@ import scipy.sparse as sp
 anndata = pytest.importorskip("anndata")
 
 import infercnvpy_tpu as cnv
-from infercnvpy_tpu.core.anndata import AnnData as TpuAnnData
+from infercnvpy_tpu.core.anndata import AnnData as OwnAnnData
 
 
-def _sample_tpu_adata():
+def _sample_own_adata():
     rng = np.random.default_rng(0)
     X = sp.random(12, 7, density=0.4, format="csr", dtype=np.float32, random_state=1)
     obs = pd.DataFrame(
@@ -37,7 +37,7 @@ def _sample_tpu_adata():
         },
         index=[f"gene{i}" for i in range(7)],
     )
-    ad = TpuAnnData(X=X, obs=obs, var=var)
+    ad = OwnAnnData(X=X, obs=obs, var=var)
     ad.obsm["X_cnv"] = rng.normal(size=(12, 5)).astype(np.float32)
     ad.uns["cnv"] = {"chr_pos": {"chr1": 0, "chr2": 3}}
     ad.layers["dense"] = np.asarray(X.todense()) * 2.0
@@ -45,7 +45,7 @@ def _sample_tpu_adata():
 
 
 def test_our_file_opens_in_real_anndata(tmp_path):
-    ours = _sample_tpu_adata()
+    ours = _sample_own_adata()
     path = tmp_path / "ours.h5ad"
     cnv.write_h5ad(path, ours)
 

@@ -1,7 +1,7 @@
 """Batch checkpoint/resume for tl.infercnv (checkpoint_dir=).
 
 The reference has no partial-work persistence (its only checkpoint is the
-final h5ad); the TPU driver streams each finished cell batch to disk and
+final h5ad); the driver streams each finished cell batch to disk and
 resumes bit-identically.  SURVEY §5 (checkpoint/resume): "long multi-host
 runs should stream per-shard results to disk".
 """

@@ -55,14 +55,14 @@ def _ill_conditioned(n=300, d=50, span=1e4, seed=3):
 def test_truncated_svd_high_precision_ill_conditioned(force_host_f64):
     """All 50 components of an ill-conditioned matrix (sigma spanning 1e4) must
     match numpy SVD at rtol 1e-6 on both high-precision paths: device float64
-    (auto under x64) and host-BLAS float64 (what a TPU without x64 runs)."""
+    (auto under x64) and host-BLAS float64 (what a run without x64 takes)."""
     import jax
 
     from infercnvpy_tpu.ops import linalg as L
 
     X, svals_true = _ill_conditioned()
     if force_host_f64:
-        # exercise the host-f64 branch directly (what a TPU without x64 runs)
+        # exercise the host-f64 branch directly (what a run without x64 takes)
         # by disabling the x64 fast path
         orig = jax.config.read("jax_enable_x64")
         try:

@@ -119,3 +119,35 @@ def test_matches_oracle(cfg):
         npt.assert_allclose(got_gene[m], want_gene[m], rtol=1e-6, atol=1e-6 * gscale)
     else:
         assert got_gene is None
+
+
+GPU_CONFIGS = [
+    # (seed, window, step): phase conv at step 10, cumsum at step 1 and 3
+    (30, 100, 10),
+    (31, 100, 1),
+    (32, 31, 3),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg", GPU_CONFIGS, ids=[f"gpu{c[0]}" for c in GPU_CONFIGS])
+def test_gpu_pipeline_matches_oracle(gpu, cfg):
+    """The GPU path (float32, its own smoothing choice) against the float64 oracle, ungated."""
+    seed, window, step = cfg
+    adata, cats = _random_problem(seed, 64, (400, 300, 150), 2, dtype=np.float32)
+    _, got_res, got_gene = cnv.tl.infercnv(
+        adata, reference_key="group", reference_cat=cats, window_size=window, step=step,
+        dynamic_threshold=None, calculate_gene_values=True, inplace=False,
+    )
+    ref = np.vstack(
+        [np.mean(adata.X[np.asarray(adata.obs["group"].values == c), :], axis=0, dtype=np.float64) for c in cats]
+    )
+    _, want_res, want_gene = oracle_infercnv(
+        adata.X, adata.var, ref, window_size=window, step=step, dynamic_threshold=None,
+        calculate_gene_values=True, var_names=adata.var_names,
+    )
+    # float32 on the device vs float64: values are clipped to +-3, so 1e-4 is ~100 ulps
+    npt.assert_allclose(got_res.toarray(), want_res, rtol=0, atol=1e-4)
+    m = ~np.isnan(want_gene)
+    npt.assert_array_equal(np.isnan(got_gene), ~m)
+    npt.assert_allclose(got_gene[m], want_gene[m], rtol=0, atol=1e-4)

@@ -1,10 +1,11 @@
-"""Pallas kernel unit tests (run in interpreter mode on the CPU mesh)."""
+"""The pipeline's per-row median and its smoothing formulations."""
 
 import numpy as np
 import numpy.testing as npt
+import pandas as pd
 import pytest
 
-from infercnvpy_tpu.ops.pallas_select import row_kth_smallest, row_median, row_median_weighted
+from infercnvpy_tpu.ops.infercnv_kernel import row_median
 
 
 @pytest.mark.parametrize("shape", [(8, 9), (16, 1793), (8, 1794), (8, 2)])
@@ -14,7 +15,7 @@ def test_row_median_exact(shape):
     x[0, :] = 0.0
     if shape[0] > 1:
         x[1, : shape[1] // 2] = -1.5
-    got = np.asarray(row_median(x, row_tile=8))
+    got = np.asarray(row_median(x))
     want = np.median(x, axis=1).astype(np.float32)
     npt.assert_array_equal(got, want)
 
@@ -28,134 +29,74 @@ def test_row_median_negatives_and_ties():
         ],
         dtype=np.float32,
     )
-    got = np.asarray(row_median(x, row_tile=3))
+    got = np.asarray(row_median(x))
     want = np.median(x, axis=1).astype(np.float32)
     npt.assert_array_equal(got, want)
 
 
 def test_row_median_wide_auto_tile():
-    """20k-wide input (the BENCH_r02 VMEM-OOM config) must shrink its row tile
-    and still be exact; on real TPU this shape compiles under the raised
-    vmem limit (verified by bench.py's gene-values section)."""
+    """20k-wide rows (the gene-values width) stay exact."""
     rng = np.random.default_rng(2)
     x = rng.normal(size=(16, 20000)).astype(np.float32)
     got = np.asarray(row_median(x))
     npt.assert_array_equal(got, np.median(x, axis=1).astype(np.float32))
 
 
-@pytest.mark.parametrize("w,seed", [(9, 0), (128, 1), (1793, 2)])
-def test_row_median_weighted_exact(w, seed):
-    rng = np.random.default_rng(seed)
-    x = rng.normal(size=(8, w)).astype(np.float32)
-    wts = rng.integers(0, 7, size=w).astype(np.int32)
-    wts[0] = 3  # ensure nonzero total
-    got = np.asarray(row_median_weighted(x, wts, row_tile=8))
-    want = np.stack([np.median(np.repeat(row, wts)) for row in x]).astype(np.float32)
-    npt.assert_array_equal(got, want)
+def _toy_var():
+    rows = [(f"chr{c + 1}", i * 100) for c, g in enumerate([150, 40, 7, 90]) for i in range(g)]
+    var = pd.DataFrame(rows, columns=["chromosome", "start"])
+    var["end"] = var["start"] + 1
+    return var
 
 
-def test_row_median_weighted_uniform_matches_plain():
-    rng = np.random.default_rng(5)
-    x = rng.normal(size=(8, 101)).astype(np.float32)
-    got = np.asarray(row_median_weighted(x, np.ones(101, np.int32), row_tile=8))
-    npt.assert_array_equal(got, np.asarray(row_median(x, row_tile=8)))
-
-
-def test_row_kth_smallest():
-    rng = np.random.default_rng(1)
-    x = rng.normal(size=(8, 33)).astype(np.float32)
-    for k in [0, 16, 32]:
-        got = np.asarray(row_kth_smallest(x, k, row_tile=8))
-        want = np.sort(x, axis=1)[:, k]
-        npt.assert_array_equal(got, want)
-
-
-def test_fused_pipeline_matches_unfused():
-    """Fused Pallas path (interpret mode) == unfused XLA path, incl. gating."""
+def _run_modes(window, step, n_ref, threshold, n_cells, gene_values, seed):
     import jax.numpy as jnp
-    import pandas as pd
 
     from infercnvpy_tpu.genome import build_window_plan
     from infercnvpy_tpu.ops.infercnv_kernel import _pack_lut, build_infercnv_fn, pack_columns
 
-    rng = np.random.default_rng(0)
-    rows = [(f"chr{c + 1}", i * 100) for c, g in enumerate([150, 40, 7, 90]) for i in range(g)]
-    var = pd.DataFrame(rows, columns=["chromosome", "start"])
-    var["end"] = var["start"] + 1
-    for w, s, nref, dt in [(100, 10, 2, 1.5), (9, 3, 1, 1.5), (11, 1, 3, None)]:
-        plan = build_window_plan(var, w, s)
-        lut = _pack_lut(plan, len(var))
-        x = pack_columns(rng.normal(size=(37, len(var))).astype(np.float32), plan, lut)
-        ref = pack_columns(rng.normal(size=(nref, len(var))).astype(np.float32), plan, lut)
-        cid = (np.arange(37) // 10).astype(np.int32)
-        f_ref = build_infercnv_fn(
-            plan, n_ref_rows=nref, lfc_clip=1.0, dynamic_threshold=dt, num_chunks=4,
-            dtype=jnp.float32, smooth_mode="phase",
+    rng = np.random.default_rng(seed)
+    var = _toy_var()
+    plan = build_window_plan(var, window, step)
+    lut = _pack_lut(plan, len(var))
+    x = pack_columns(rng.normal(size=(n_cells, len(var))).astype(np.float32), plan, lut)
+    ref = pack_columns(rng.normal(size=(n_ref, len(var))).astype(np.float32), plan, lut)
+    cid = (np.arange(n_cells) // 10).astype(np.int32)
+    n_chunks = int(cid.max()) + 1
+    out = {}
+    for mode in ("phase", "cumsum", "conv"):
+        fn = build_infercnv_fn(
+            plan, n_ref_rows=n_ref, lfc_clip=1.0, dynamic_threshold=threshold, num_chunks=n_chunks,
+            calculate_gene_values=gene_values, dtype=jnp.float32, smooth_mode=mode,
         )
-        f_fus = build_infercnv_fn(
-            plan, n_ref_rows=nref, lfc_clip=1.0, dynamic_threshold=dt, num_chunks=4,
-            dtype=jnp.float32, smooth_mode="fused",
-        )
-        a, _ = f_ref(x, ref, cid)
-        b, _ = f_fus(x, ref, cid)
-        npt.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-5, atol=1e-6)
+        out[mode] = tuple(None if a is None else np.asarray(a) for a in fn(x, ref, cid))
+    return out
 
 
-def test_gene_project_roll_prefix_sum_parity():
-    """The exact log-shift pltpu.roll prefix sum shipped to TPU hardware must
-    match the interpret-mode cumsum substitute bit-for-bit (ADVICE r3: the
-    hardware formulation was never exercised by the CPU suite)."""
-    import pandas as pd
-
-    from infercnvpy_tpu.genome import build_window_plan
-    from infercnvpy_tpu.ops.pallas_gene import gene_project, gene_projection_data
-
-    rng = np.random.default_rng(7)
-    rows = [(f"chr{c + 1}", i * 100) for c, g in enumerate([150, 40, 7, 90]) for i in range(g)]
-    var = pd.DataFrame(rows, columns=["chromosome", "start"])
-    var["end"] = var["start"] + 1
-    plan = build_window_plan(var, 100, 10)
-    gpd = gene_projection_data(plan)
-    x_res = rng.normal(size=(8, plan.n_windows)).astype(np.float32)
-    thr8 = np.zeros((8, 8), np.float32)
-    thr8[:, 0] = 0.05
-    a = np.asarray(gene_project(x_res, thr8, gpd, gate=True, row_tile=8))
-    b = np.asarray(gene_project(x_res, thr8, gpd, gate=True, row_tile=8, force_roll=True))
-    # the log-shift tree sum and sequential cumsum accumulate in different
-    # orders, so bit-equality is not expected — only f32 round-off
-    npt.assert_allclose(a, b, rtol=0, atol=2e-6)
-    # ungated: every element must agree to round-off as well (no threshold
-    # flips hiding behind zeros)
-    a2 = np.asarray(gene_project(x_res, thr8, gpd, gate=False, row_tile=8))
-    b2 = np.asarray(gene_project(x_res, thr8, gpd, gate=False, row_tile=8, force_roll=True))
-    npt.assert_allclose(a2, b2, rtol=0, atol=2e-6)
+@pytest.mark.parametrize("window,step,n_ref,threshold", [(100, 10, 2, 1.5), (9, 3, 1, 1.5), (11, 1, 3, None)])
+def test_smoothing_formulations_agree(window, step, n_ref, threshold):
+    """phase conv, cumsum and direct strided conv give the same gated windows."""
+    out = _run_modes(window, step, n_ref, threshold, n_cells=37, gene_values=False, seed=0)
+    for mode in ("cumsum", "conv"):
+        npt.assert_allclose(out[mode][0], out["phase"][0], rtol=1e-5, atol=1e-6)
 
 
-def test_gene_project_rejects_ragged_rows():
-    """A cell count that is not a multiple of row_tile must fail loudly
-    (the grid would silently drop the remainder rows)."""
-    import pandas as pd
-
-    from infercnvpy_tpu.genome import build_window_plan
-    from infercnvpy_tpu.ops.pallas_gene import gene_project, gene_projection_data
-
-    rows = [(f"chr{c + 1}", i * 100) for c, g in enumerate([150, 40]) for i in range(g)]
-    var = pd.DataFrame(rows, columns=["chromosome", "start"])
-    var["end"] = var["start"] + 1
-    plan = build_window_plan(var, 10, 2)
-    gpd = gene_projection_data(plan)
-    x_res = np.zeros((7, plan.n_windows), np.float32)
-    with pytest.raises(ValueError, match="multiple of row_tile"):
-        gene_project(x_res, np.zeros((7, 8), np.float32), gpd, gate=False, row_tile=8)
+@pytest.mark.parametrize("window,step,threshold", [(100, 10, 1.5), (9, 3, None), (11, 7, 1.5)])
+def test_smoothing_formulations_agree_gene_values(window, step, threshold):
+    out = _run_modes(window, step, 2, threshold, n_cells=21, gene_values=True, seed=3)
+    ga = out["phase"][1]
+    for mode in ("cumsum", "conv"):
+        gb = out[mode][1]
+        npt.assert_array_equal(np.isnan(ga), np.isnan(gb))
+        m = ~np.isnan(ga)
+        npt.assert_allclose(gb[m], ga[m], rtol=1e-5, atol=1e-5)
 
 
 def test_gene_projection_cache_pins_plan():
     """The gpd cache must key on the live plan object — a recycled id() must
     never serve stale projection data (ADVICE r3 medium)."""
-    import pandas as pd
-
     from infercnvpy_tpu.genome import build_window_plan
-    from infercnvpy_tpu.ops.pallas_gene import _gpd_cache, gene_projection_data
+    from infercnvpy_tpu.genome.plan import _gpd_cache, gene_projection_data
 
     rows = [(f"chr{c + 1}", i * 100) for c, g in enumerate([30, 20]) for i in range(g)]
     var = pd.DataFrame(rows, columns=["chromosome", "start"])
@@ -167,33 +108,13 @@ def test_gene_projection_cache_pins_plan():
     assert cached_plan is plan and cached_gpd is gpd1
 
 
-def test_fused_gene_values_matches_unfused():
-    """Fused path's gene-values epilogue (median-cancellation identity) ==
-    unfused path's pre-median formulation."""
-    import jax.numpy as jnp
-    import pandas as pd
-
+def test_clear_transform_caches_empties_gene_projection_cache():
     from infercnvpy_tpu.genome import build_window_plan
-    from infercnvpy_tpu.ops.infercnv_kernel import _pack_lut, build_infercnv_fn, pack_columns
+    from infercnvpy_tpu.genome.plan import _gpd_cache, gene_projection_data
+    from infercnvpy_tpu.tl import clear_transform_caches
 
-    rng = np.random.default_rng(3)
-    rows = [(f"chr{c + 1}", i * 100) for c, g in enumerate([150, 40, 7, 90]) for i in range(g)]
-    var = pd.DataFrame(rows, columns=["chromosome", "start"])
-    var["end"] = var["start"] + 1
-    for w, s, dt in [(100, 10, 1.5), (9, 3, None), (11, 7, 1.5)]:
-        plan = build_window_plan(var, w, s)
-        lut = _pack_lut(plan, len(var))
-        x = pack_columns(rng.normal(size=(21, len(var))).astype(np.float32), plan, lut)
-        ref = pack_columns(rng.normal(size=(2, len(var))).astype(np.float32), plan, lut)
-        cid = (np.arange(21) // 10).astype(np.int32)
-        kwargs = dict(
-            n_ref_rows=2, lfc_clip=1.0, dynamic_threshold=dt, num_chunks=3,
-            dtype=jnp.float32, calculate_gene_values=True,
-        )
-        a, ga = build_infercnv_fn(plan, smooth_mode="phase", **kwargs)(x, ref, cid)
-        b, gb = build_infercnv_fn(plan, smooth_mode="fused", **kwargs)(x, ref, cid)
-        npt.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-5, atol=1e-6)
-        ga, gb = np.asarray(ga), np.asarray(gb)
-        npt.assert_array_equal(np.isnan(ga), np.isnan(gb))
-        m = ~np.isnan(ga)
-        npt.assert_allclose(ga[m], gb[m], rtol=1e-5, atol=1e-5)
+    plan = build_window_plan(_toy_var(), 10, 2)
+    gene_projection_data(plan)
+    assert id(plan) in _gpd_cache
+    clear_transform_caches()
+    assert not _gpd_cache

@@ -1,6 +1,6 @@
 """Multi-device sharding tests on the virtual 8-device CPU mesh.
 
-The TPU analogue of the reference's chunking-equivalence test
+The counterpart of the reference's chunking-equivalence test
 (reference: tests/test_tools.py:172-191): N-device sharded execution must
 reproduce the single-device result exactly.
 """

@@ -51,8 +51,8 @@ def test_pearson_corr_parity_across_device_switchover():
 
 
 def test_pearson_split_f32_path_accuracy():
-    """The compensated double-f32 device path (used when x64 is off, e.g. on
-    real TPU) stays within ~1e-5 of float64 np.corrcoef."""
+    """The compensated double-f32 device path (used when x64 is off, JAX's
+    default) stays within ~1e-5 of float64 np.corrcoef."""
     import numpy.testing as npt
 
     from infercnvpy_tpu.ops.corr import _pearson_rows_split

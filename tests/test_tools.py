@@ -118,7 +118,7 @@ def test_infercnv_more_than_2_chunks(adata_full_mock, x_res_actual):
 
 
 def test_infercnv_batching_equivalence(adata_full_mock, x_res_actual):
-    """Device batching must not change results (TPU analogue of the chunking test)."""
+    """Device batching must not change results (counterpart of the chunking test)."""
     _, res, _ = cnv.tl.infercnv(
         adata_full_mock,
         chunksize=2,
